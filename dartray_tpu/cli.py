@@ -172,8 +172,8 @@ def cmd_run(model: str, input_file: str):
     # shard the field stages over every LOCAL device (P1+P6).  Multi-host
     # (P8, initialize_mpi io_routines.f90:3610): set DARTRAY_MULTIHOST=1
     # and the coordination env vars (DARTRAY_COORDINATOR=host:port,
-    # DARTRAY_NUM_PROCS, DARTRAY_PROC_ID — or nothing on cloud TPU,
-    # which auto-detects), then run the SAME command on every host; each
+    # DARTRAY_NUM_PROCS, DARTRAY_PROC_ID — or nothing on clusters that
+    # JAX auto-detects), then run the SAME command in every process; each
     # process traces a rank-strided slice of the sources on its local
     # mesh and the accumulators reduce once per stage
     # (parallel/distributed.py).  A 'wave' axis additionally shards the
@@ -624,6 +624,9 @@ def main(argv=None):
     if len(argv) < 2:
         print(__doc__)
         return 2
+    from .runtime import setup_compile_cache
+
+    setup_compile_cache()
     cmd = argv[0]
     if cmd == "run":
         return cmd_run(argv[1], argv[2])

@@ -129,7 +129,7 @@ class RTConfig:
             errs.append(f"unknown dust_heating_type {self.dust_heating_type!r}")
         if self.no_communications and self.sequential_scattering is False:
             # the reference *requires* sequential_scattering in
-            # no_communications mode (rt_routines.f90:319); the TPU rebuild
+            # no_communications mode (rt_routines.f90:319); this rebuild
             # has no such race so both are accepted.
             pass
         if errs:

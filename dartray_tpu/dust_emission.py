@@ -7,7 +7,7 @@ Rebuild of the dust-emission core of sed_routines.f90:
 * calc_t_dust_equil + zbrent_tdust (sed:846-874, 994-1078): equilibrium
   grain temperature from absorbed = emitted; the scalar Brent solve per
   cell becomes a *batched bisection* over all cells at once (the balance
-  function is monotonic in T, bisection vectorizes perfectly on the VPU);
+  function is monotonic in T, so bisection vectorizes over cells);
 * calc_dens_dustem (sed:377-427): effective-grain emissivity
   4 pi kabs/kext_ref * dens_ref * B(T,lambda) [* parsec^2 -> W/m/pc^3];
 * calc_dens_dustem_equ (sed:431-504): per-species/per-size equilibrium
@@ -24,6 +24,10 @@ import jax
 import jax.numpy as jnp
 
 from .constants import CSPEED, HPLANCK, KBOLTZ, PARSEC
+
+# full float32 products in the absorbed/emitted energy integrals: a GPU
+# may otherwise run float32 einsums in TF32 (about three decimal digits)
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 T_MIN, T_MAX = 0.0, 1.0e4  # zbrent bracket (sed_routines.f90:9-11)
 
@@ -126,6 +130,24 @@ def dens_dustem_eff(
     return em, T
 
 
+def grain_absorbed(kabs_s_g, rf_s, dl_s, kabs_d_g=None, rf_d=None, dl_d=None):
+    """Absorbed power per grain (n, C, A) from the stellar (and dust)
+    radiation field: sum over lambda of kabs(a, lambda) rf(lambda) dlambda."""
+    abs_en = jnp.einsum("cas,ns->nca", kabs_s_g, rf_s * dl_s[None, :],
+                        precision=_HIGHEST)
+    if rf_d is not None:
+        abs_en = abs_en + jnp.einsum(
+            "cad,nd->nca", kabs_d_g, rf_d * dl_d[None, :], precision=_HIGHEST)
+    return abs_en
+
+
+def grain_emission(B, kabs_d_g, wsize):
+    """4 pi * integral over sizes of kabs(a) B(T(a)) f(a) da: (n, Ld)
+    [W/m/H] from the per-grain Planck functions B (n, C, A, Ld)."""
+    return 4.0 * jnp.pi * jnp.einsum(
+        "ncad,cad,ca->nd", B, kabs_d_g, wsize, precision=_HIGHEST)
+
+
 def dens_dustem_equ(
     dust, wl, dens_ref, u_stellar, u_dust=None, units_ufield="erg/Hz/pc^3",
     cell_batch: int = 2048,
@@ -163,18 +185,12 @@ def dens_dustem_equ(
         idx = sel[b0 : b0 + cell_batch]
         rf_s = rf_stars_all[idx]  # (n, Ls)
         rf_d = rf_dust_all[idx] if rf_dust_all is not None else None
-        # absorbed power per grain: (n, C, A)
-        abs_en = jnp.einsum("cas,ns->nca", kabs_s_g, rf_s * dl_s[None, :])
-        if rf_d is not None:
-            abs_en = abs_en + jnp.einsum("cad,nd->nca", kabs_d_g, rf_d * dl_d[None, :])
+        abs_en = grain_absorbed(kabs_s_g, rf_s, dl_s, kabs_d_g, rf_d, dl_d)
         T = solve_t_equil(
             kabs_d_g[None, :, :, :], lam_d, dl_d, abs_en
         )  # (n, C, A)
         B = bplanck(T[..., None], lam_d)  # (n, C, A, Ld)
-        # 4 pi * integral over sizes of kabs(a) B(T(a)) f(a) da  [W/m/H]
-        em = 4.0 * jnp.pi * jnp.einsum(
-            "ncad,cad,ca->nd", B, kabs_d_g, wsize
-        )
+        em = grain_emission(B, kabs_d_g, wsize)
         em = em / dust.tau_nh_ref * jnp.asarray(dref[idx])[:, None] * PARSEC**2
         out[idx] = np.asarray(em)
     return out

@@ -1,6 +1,6 @@
 """Adaptive octree grid: flat structure-of-arrays + vectorized navigation.
 
-TPU-native rebuild of the reference's grid core (smooth_grid_routines.f90):
+Rebuild of the reference's grid core (smooth_grid_routines.f90):
 
 * the cell tables follow the reference layout exactly (cells stored flat,
   ``cchild[i]`` = id of the first child or -1 for leaves, children
@@ -157,11 +157,9 @@ def point_to_cell(grid: Grid, pos):
 # face-neighbour navigation table
 # ---------------------------------------------------------------------------
 #
-# TPU gathers cost ~10-15 ns *per row* regardless of width (no hardware
-# gather), so the octree descent of the march hot loop (up to max_lvl
-# dependent 1-wide gathers per ray per step, the dominant cost of the whole
-# framework) is replaced by ONE 8-wide row gather from this precomputed
-# table.  The reference's equivalent is the neighbour bookkeeping of
+# The octree descent of the march hot loop (up to max_lvl dependent
+# 1-wide gathers per ray per step) is replaced by ONE 8-wide row gather
+# from this precomputed table.  The reference's equivalent is the neighbour bookkeeping of
 # find_neighbours + ccindd_to_cc (smooth_grid_routines.f90:656-748,820-852);
 # here it is precomputed once per grid because the grid is static during RT.
 

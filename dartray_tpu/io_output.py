@@ -233,29 +233,27 @@ def write_psel_av(files: OutputFiles, stats: dict, lambda_um):
 def check_memory(grid_ncell: int, L: int, scfg=None, n_dir: int = 0,
                  safety: float = 1.2) -> dict:
     """Pre-flight memory estimate (check_memory, io_routines.f90:3540-3607):
-    scaspe + field bytes vs available accelerator memory.  The arrays are
-    device-resident, so the bound is the accelerator's memory when one is
-    present (jax device memory_stats); the host /proc/meminfo value is only
-    a proxy fallback.  Raises MemoryError when the projected footprint
-    exceeds the *device* limit; the host-RAM proxy only warns (it can both
-    falsely pass and falsely fail for a TPU run)."""
+    scaspe + field bytes vs available memory.  The arrays live on the
+    device, so on an accelerator the bound is the device's own
+    ``memory_stats`` and exceeding it raises MemoryError.  Only on the CPU
+    backend does host /proc/meminfo stand in, and then an overrun only
+    warns."""
+    import jax
+
     field_b = 3 * grid_ncell * L * 8  # u_fest, u_final, delta
     scaspe_b = scfg.nbytes(grid_ncell) * 2 if scfg is not None else 0
     iobs_b = grid_ncell * max(n_dir, 1) * L * 8
     need = int((field_b + scaspe_b + iobs_b) * safety)
+    dev = jax.local_devices()[0]
+    on_device = dev.platform != "cpu"
     avail = None
-    on_device = False
-    try:
-        import jax
-
-        dev = jax.local_devices()[0]
-        ms = dev.memory_stats() if hasattr(dev, "memory_stats") else None
-        if ms and ms.get("bytes_limit"):
-            avail = ms["bytes_limit"] - ms.get("bytes_in_use", 0)
-            on_device = True
-    except Exception:
-        pass
-    if avail is None:
+    if on_device:
+        ms = dev.memory_stats()
+        if not ms or not ms.get("bytes_limit"):
+            raise RuntimeError(
+                f"{dev.platform} device reports no memory_stats (check_memory)")
+        avail = ms["bytes_limit"] - ms.get("bytes_in_use", 0)
+    else:
         try:
             with open("/proc/meminfo") as f:
                 for line in f:
@@ -273,7 +271,7 @@ def check_memory(grid_ncell: int, L: int, scfg=None, n_dir: int = 0,
             raise MemoryError(msg)
         import warnings
 
-        warnings.warn(msg + " [host-RAM proxy; no accelerator stats]")
+        warnings.warn(msg + " [host-RAM proxy on the CPU backend]")
     return est
 
 

@@ -1,6 +1,6 @@
 """Skeleton for a new model family (docs/ADDING_A_MODEL.md).
 
-TPU-native equivalent of the reference's PROGRAM_TEMPLATES/
+Equivalent of the reference's PROGRAM_TEMPLATES/
 (user_routines_model.f90 + create_adap_grid_model.f90 + dartray_model.f90):
 copy this file to models/<name>.py, fill in the physics, then register
 <name> in cli.MODELS / cli._model_sources / cli.cmd_create_grid.

@@ -111,3 +111,65 @@ def source_luminosity(lambda_um, table_lambda, table_lum):
     return 10.0 ** np.interp(
         np.log10(lam), np.log10(table_lambda), np.log10(table_lum)
     )
+
+
+def single_scattering_flux_jy(kext_norm, albedo, gsca, lum_l, scfg,
+                              tau_z: float, up: bool, dist_pc: float):
+    """Closed-form first-order scattered flux [Jy] toward a vertical
+    external observer (up: +z, else -z) at dist_pc, by numerical
+    quadrature over the slab:
+
+        F_1(n) d^2 = int dV rho k_sca [L e^{-tau_in} / (4 pi r^2)]
+                     Phi(s, n) / (4 pi) e^{-tau_out}
+
+    with s the direction source -> x, tau_in / tau_out the slab optical
+    depths along the in / out paths (closed form for a z-slab), and Phi
+    the Henyey-Greenstein phase factor in the framework's *discrete*
+    normalization (calc_ffn_arr, rt_routines.f90:2186-2281): w(cos a) *
+    npix_hp / sum_p w(cos a_p) over the bucket's HEALPix pixel directions
+    of ``scfg`` (an rt.scattering.ScaspeConfig), which removes the
+    angular-discretization term from a comparison with the framework.
+    ``kext_norm`` (kext / kext_ref), ``albedo``, ``gsca`` and ``lum_l``
+    (the star's luminosity [erg/s/Hz]) cover the wavelengths of
+    ``scfg``."""
+    z_top, z_bot = Z1_SLAB, Z1_SLAB - LZ_SLAB
+    S = STAR_POS
+    # the integrand is smooth: the source is 6 pc above the slab top
+    nx, nz = 60, 48
+    xs = np.linspace(-5, 5, nx, endpoint=False) + 5.0 / nx
+    zs = np.linspace(z_bot, z_top, nz, endpoint=False) + (
+        (z_top - z_bot) / nz / 2
+    )
+    X, Y, Z = np.meshgrid(xs, xs, zs, indexing="ij")
+    dV = (10.0 / nx) ** 2 * ((z_top - z_bot) / nz)
+    P3 = np.stack([X.ravel(), Y.ravel(), Z.ravel()], axis=-1)  # (N, 3)
+    r = np.linalg.norm(P3 - S, axis=1)
+    s_hat = (P3 - S) / r[:, None]
+    cosa = s_hat[:, 2] if up else -s_hat[:, 2]
+
+    k_ref = tau_z / LZ_SLAB  # extinction coefficient at lambda_ref [1/pc]
+    out = np.zeros(scfg.L)
+    for il, (kn, alb, g) in enumerate(
+        zip(np.asarray(kext_norm), np.asarray(albedo), np.asarray(gsca))
+    ):
+        k = k_ref * kn
+        tau_in = k * r * (z_top - P3[:, 2]) / (S[2] - P3[:, 2])
+        tau_out = k * ((z_top - P3[:, 2]) if up else (P3[:, 2] - z_bot))
+        b = next(bb for bb in scfg.buckets
+                 if il in set(bb.lam_idx.tolist()))
+        if b.kp >= 0:
+            dirs = b.dirs[: b.npix_hp]  # (P, 3) HEALPix pixel centers
+            wpix = (1 - g**2) * (
+                1 + g**2 - 2 * g * (s_hat @ dirs.T)
+            ) ** -1.5  # (N, P)
+            wobs = (1 - g**2) * (1 + g**2 - 2 * g * cosa) ** -1.5
+            phi = wobs / wpix.sum(axis=1) * b.npix_hp
+        else:
+            phi = np.ones_like(cosa)
+        integ = (
+            k * alb * lum_l[il] * np.exp(-tau_in) / (4 * np.pi * r**2)
+            * phi / (4 * np.pi) * np.exp(-tau_out)
+        )
+        out[il] = integ.sum() * dV
+    d_cm = dist_pc * PARSEC * 100
+    return out / (d_cm**2) * 1e23

@@ -1,6 +1,6 @@
 """Multi-host execution environment (P8).
 
-TPU-native replacement for the reference's MPI environment
+Replacement for the reference's MPI environment
 (initialize_mpi / terminate_mpi, io_routines.f90:3610-3656): each host
 runs the SAME program (the reference's ranks do too); jax.distributed
 connects them.  The PRODUCTION model mirrors the reference's MPI
@@ -13,10 +13,12 @@ lockstep without explicit synchronization.
 
 Entry points:
 
-* ``initialize()`` — call once at program start on every host.  Reads the
-  standard coordination settings from the environment when arguments are
+* ``initialize()`` — call once at program start in every process.  Reads
+  the coordination settings from the environment when arguments are
   omitted (``DARTRAY_COORDINATOR``, ``DARTRAY_NUM_PROCS``,
-  ``DARTRAY_PROC_ID``; cloud TPU environments auto-detect without any).
+  ``DARTRAY_PROC_ID``; clusters that JAX auto-detects need none).  When
+  the coordinator is on this host, each process opens only the card with
+  its own process index, so several processes share one multi-GPU host.
   The CLI calls this first thing when ``DARTRAY_MULTIHOST=1`` is set.
 * ``split_source_set(sources)`` / ``allreduce_sum(x)`` / ``agree(tag,
   v)`` — the production P8 layer used by rt.engine / pipeline.
@@ -38,6 +40,22 @@ import jax
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 
+_LOCAL_HOSTS = ("localhost", "127.0.0.1", "[::1]")
+
+
+def local_device_ids(coordinator: str, process_id: int):
+    """Devices this process opens: ``[process_id]`` when the coordinator
+    runs on this host (every process of the run shares the host, one card
+    each — a JAX process would otherwise reserve memory on every card and
+    starve the others), else None (each host's process opens all of its
+    cards)."""
+    if coordinator is None or process_id is None:
+        return None
+    if coordinator.rsplit(":", 1)[0] in _LOCAL_HOSTS:
+        return [process_id]
+    return None
+
+
 def initialize(coordinator: str = None, num_processes: int = None,
                process_id: int = None):
     """jax.distributed.initialize with env-var fallbacks; no-op if the
@@ -54,7 +72,8 @@ def initialize(coordinator: str = None, num_processes: int = None,
     kw = {}
     if coordinator:
         kw.update(coordinator_address=coordinator,
-                  num_processes=num_processes, process_id=process_id)
+                  num_processes=num_processes, process_id=process_id,
+                  local_device_ids=local_device_ids(coordinator, process_id))
     jax.distributed.initialize(**kw)
     initialize._done = True
 
@@ -71,7 +90,7 @@ def global_ray_mesh() -> Mesh:
 # The reference's MPI model is rank-wise source splitting with a field
 # reduction at stage end (the src loop strides by rank, and
 # reduce_u_fest_arr/reduce_u_final_arr sum the per-rank accumulators,
-# io_routines.f90:3667-3986).  The TPU-native equivalent keeps that outer
+# io_routines.f90:3667-3986).  The equivalent here keeps that outer
 # layer: each PROCESS traces an interleaved slice of the stage's sources on
 # its own local device mesh (where rays/wave shard_map parallelism still
 # applies), and the per-process field/scaspe accumulators are summed once
@@ -116,9 +135,9 @@ def allreduce_sum(x):
     host round trips this costs; the stage-level granularity keeps that
     swap local to this function.)
 
-    Integer counters are reduced exactly even under the TPU's x32 mode
-    (where an int64 -> jnp conversion would wrap) by splitting them into
-    two int32 halves."""
+    Integer counters are reduced exactly even in 32-bit sessions (where an
+    int64 -> jnp conversion would wrap) by splitting them into two int32
+    halves."""
     if jax.process_count() == 1:
         return x
     from jax.experimental import multihost_utils

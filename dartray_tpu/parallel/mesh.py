@@ -1,6 +1,6 @@
 """Device-mesh sharding of the RT computation.
 
-TPU-native replacement for the reference's MPI decomposition (SURVEY.md
+Replacement for the reference's MPI decomposition (SURVEY.md
 §2.2): the grid and field accumulators are replicated, rays are sharded
 across the mesh "rays" axis (P1 source-data parallelism), wavelengths can
 be sharded across a second "wave" axis (P3 wavelength sharding), and the
@@ -85,7 +85,7 @@ def make_stage_march(mesh: Mesh, grid: Grid, n_buckets: int, **static_kw):
     device-sharded (ndev, ...) slab — the reference's no_communications
     mode (rt_routines.f90:319; reduce_* io_routines.f90:3667-3986).  No
     collective runs per round; the engine sums the slabs ONCE per stage
-    (stage_reduce), which XLA lowers to a single all-reduce over ICI.
+    (stage_reduce), which XLA lowers to a single all-reduce.
 
     When the mesh also has a 'wave' axis (P3, prepare_scaspe_splitting
     rt_routines.f90:2855-2965), the scaspe slabs' wavelength axis is
@@ -132,7 +132,7 @@ def make_stage_march(mesh: Mesh, grid: Grid, n_buckets: int, **static_kw):
             sc_out = ()
         return (
             u[None], res.lum, res.packed_i, res.packed_f,
-            res.n_steps[None], res.lum_lost[None],
+            res.n_steps[None], res.lum_lost[None], res.lum_esc[None],
         ) + sc_out
 
     lam_spec = P("wave") if has_wave else P()
@@ -147,7 +147,8 @@ def make_stage_march(mesh: Mesh, grid: Grid, n_buckets: int, **static_kw):
         in_specs=(P(), P(), P(), P(), P("rays"), _BATCH_SPECS, P("rays"),
                   P("rays"), sc_specs, lam_specs, lam_specs, lam_specs),
         out_specs=(P("rays"), P("rays", None), P(None, "rays"),
-                   P(None, "rays"), P("rays"), P("rays")) + sc_specs,
+                   P(None, "rays"), P("rays"), P("rays"), P("rays"))
+        + sc_specs,
         check_vma=False,
     )
 
@@ -163,18 +164,21 @@ def make_stage_march(mesh: Mesh, grid: Grid, n_buckets: int, **static_kw):
         out = f(dens_ref, kext_norm, albedo, u_fest, u_slab, batch, beam_i,
                 can_merge, scaspe_slabs, scaspe_g, scaspe_lam_idx,
                 scaspe_lam_mask)
-        u_slab2, lum, pi, pf, n_steps, lum_lost = out[:6]
+        u_slab2, lum, pi, pf, n_steps, lum_lost, lum_esc = out[:7]
         steps_tot = jnp.sum(n_steps)
         lost_tot = jnp.sum(lum_lost, axis=0)
+        esc_tot = jnp.sum(lum_esc, axis=0)
         # re-establish the single-device packed layout: row 6 of packed_i =
-        # total steps, row 2 of packed_f = total lum_lost (per-shard rows
-        # stitched along the ray axis leave per-shard values there)
+        # total steps, rows 2-3 of packed_f = total lum_lost / lum_esc
+        # (per-shard rows stitched along the ray axis leave per-shard
+        # values there)
         pi = pi.at[6].set(steps_tot.astype(pi.dtype))
         # row 7 = per-shard loop iteration counts; report the slowest shard
         pi = pi.at[7].set(jnp.max(pi[7]))
-        pf = pf.at[2].set(
-            jnp.zeros((pf.shape[1],), pf.dtype).at[: lost_tot.shape[0]].set(lost_tot)
-        )
+        for row, tot in ((2, lost_tot), (3, esc_tot)):
+            pf = pf.at[row].set(
+                jnp.zeros((pf.shape[1],), pf.dtype).at[: tot.shape[0]].set(tot)
+            )
         packed_all = (
             jnp.concatenate([pi, jax.lax.bitcast_convert_type(pf, jnp.int32)])
             if pf.dtype == jnp.float32 else None
@@ -182,11 +186,11 @@ def make_stage_march(mesh: Mesh, grid: Grid, n_buckets: int, **static_kw):
         res = M.MarchResult(
             status=pi[0], lum=lum, prev=pf[0], cc=pi[1], isel_old=pi[2],
             dplane=pf[1], lum_lost=lost_tot, i_obs=None, n_steps=steps_tot,
-            cc_cur=pi[3], isel_cur=pi[4], seen_other=pi[5],
+            lum_esc=esc_tot, cc_cur=pi[3], isel_cur=pi[4], seen_other=pi[5],
             packed_i=pi, packed_f=pf, packed_all=packed_all,
         )
         if n_buckets:
-            return u_slab2, res, out[6:]
+            return u_slab2, res, out[7:]
         return u_slab2, res
 
     return run
@@ -203,7 +207,7 @@ def sharded_train_step(mesh: Mesh, grid: Grid, cs: float):
     gradient of a field-matching loss w.r.t. the dust density, with rays
     sharded over the 'rays' axis and wavelengths over 'wave'.
 
-    The gradient all-reduce (psum over 'rays') is the TPU equivalent of the
+    The gradient all-reduce (psum over 'rays') stands in for the
     reference's parameter-reduction collectives.
     Returns a jitted function
         step(dens_ref, kext_norm, lum, cells, lengths, count, src_cell,

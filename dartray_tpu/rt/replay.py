@@ -25,6 +25,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..grid.octree import Grid
+from .march import exp_tau_minus_one, one_minus_exp
 
 
 def _safe(tau, small):
@@ -66,7 +67,7 @@ def replay_iobs(
     else:
         tau_o = tau
     small_o = tau_o < 1e-8
-    T_own = jnp.where(small_o, 1.0, (1.0 - jnp.exp(-tau_o)) / _safe(tau_o, small_o))
+    T_own = jnp.where(small_o, 1.0, one_minus_exp(tau_o) / _safe(tau_o, small_o))
 
     T = jnp.where(is_own, T_own, T_ext)
     T = jnp.where(valid[..., None], T, 1.0)
@@ -84,7 +85,9 @@ def hg_ffn(theta, phi, gsca_k, dirs_k, npix_hp: int):
     if npix_hp <= 1:
         return jnp.ones((theta.shape[0], dirs_k.shape[0], gsca_k.shape[0]),
                         dtype=d.dtype)
-    ads = d @ dirs_k.T  # (NR, P)
+    # full float32 products: a TF32 cosine would move the g ~ 0.6 HG
+    # weights by far more than the replay's tolerance
+    ads = jnp.matmul(d, dirs_k.T, precision=jax.lax.Precision.HIGHEST)
     g = gsca_k[None, None, :]
     w = (1.0 - g**2) / npix_hp * (1.0 + g**2 - 2.0 * g * ads[:, :, None]) ** (-1.5)
     tot = jnp.sum(w[:, :npix_hp, :], axis=1, keepdims=True)
@@ -137,14 +140,13 @@ def replay_scaspe(
 
     is_own = (trace_cells == src_cell[:, None])[..., None]
     if point_source:
-        tau_o, small_o, exp_o = tau, small, exp_tau
+        tau_o, small_o = tau, small
     else:
         tau_o = dref[..., None] * kext_norm[None, None, :] * csize_nc[:, None, None]
         small_o = tau_o < 1e-8
-        exp_o = jnp.exp(-tau_o)
 
     T_ext = exp_tau
-    T_own = jnp.where(small_o, 1.0, (1.0 - exp_o) / _safe(tau_o, small_o))
+    T_own = jnp.where(small_o, 1.0, one_minus_exp(tau_o) / _safe(tau_o, small_o))
     T = jnp.where(is_own, T_own, T_ext)
     T = jnp.where(valid[..., None], T, 1.0)
     I0 = init_lum / (4.0 * jnp.pi * csize_nc**2)[:, None]
@@ -154,11 +156,11 @@ def replay_scaspe(
         axis=1,
     )
 
-    en_ext = jnp.where(small, I_entry * tau, I_entry * (1.0 - exp_tau))
+    en_ext = jnp.where(small, I_entry * tau, I_entry * one_minus_exp(tau))
     en_own = jnp.where(
         small_o,
         I_entry * tau_o / 2.0,
-        I_entry / _safe(tau_o, small_o) * (exp_o + tau_o - 1.0),
+        I_entry / _safe(tau_o, small_o) * exp_tau_minus_one(tau_o),
     )
     en = jnp.where(is_own, en_own, en_ext)
     beam_i = jnp.broadcast_to(jnp.asarray(beam_i), (NR,))
@@ -243,15 +245,14 @@ def replay_field(
 
     is_own = (trace_cells == src_cell[:, None])[..., None]
     if point_source:
-        tau_o, small_o, exp_o = tau, small, exp_tau
+        tau_o, small_o = tau, small
     else:
         tau_o = dref[..., None] * kext_norm[None, None, :] * csize_nc[:, None, None]
         small_o = tau_o < 1e-8
-        exp_o = jnp.exp(-tau_o)
 
     # per-step transmissions (for the running intensity)
     T_ext = exp_tau
-    T_own = jnp.where(small_o, 1.0, (1.0 - exp_o) / _safe(tau_o, small_o))
+    T_own = jnp.where(small_o, 1.0, one_minus_exp(tau_o) / _safe(tau_o, small_o))
     T = jnp.where(is_own, T_own, T_ext)
     T = jnp.where(valid[..., None], T, 1.0)
 
@@ -265,7 +266,7 @@ def replay_field(
 
     # mean intensity over the crossing
     i_av_ext = jnp.where(
-        small, I_entry, I_entry / _safe(tau, small) * (1.0 - exp_tau)
+        small, I_entry, I_entry / _safe(tau, small) * one_minus_exp(tau)
     )
     if point_source:
         i_av_own = i_av_ext
@@ -273,7 +274,7 @@ def replay_field(
         i_av_own = jnp.where(
             small_o,
             I_entry,
-            I_entry / _safe(tau_o, small_o) ** 2 * (exp_o + tau_o - 1.0),
+            I_entry / _safe(tau_o, small_o) ** 2 * exp_tau_minus_one(tau_o),
         )
     i_av = jnp.where(is_own, i_av_own, i_av_ext)
 

@@ -21,9 +21,9 @@ kernel call, outside the traversal loop.
 
 The scattering iterations run in the reference's sequential_scattering
 (Jacobi) mode (rt_routines.f90:272): each iteration propagates the
-luminosity scattered in the *previous* pass; this is deterministic and
-order-independent, which is what a data-parallel TPU pass needs
-(no_communications mode requires it in the reference too, rt:319).
+luminosity scattered in the *previous* pass; this is order-independent,
+which is what a data-parallel pass needs (no_communications mode
+requires it in the reference too, rt:319).
 """
 from __future__ import annotations
 
@@ -244,10 +244,8 @@ class ScaspeConfig:
 class ScaspeDevOps:
     """On-device scaspe reads for the scattering iterations.
 
-    The round-3 profile showed the scattering stage host-bound: every
-    launch packet ran assign_src_lum as numpy fancy-indexing over a full
-    host copy of scaspe (and each iteration copied the whole scaspe
-    device->host).  Here the scaspe tuple stays device-resident; the only
+    The scaspe tuple stays device-resident, so no launch packet runs
+    assign_src_lum as numpy fancy-indexing over a host copy; the only
     per-iteration transfers are the (L,) convergence totals and one
     (ncell,) per-cell sum for source selection, and per launch packet a
     small (n,)+(nb,n) int upload for the gather indices
@@ -380,7 +378,7 @@ def run_scattering(
         it += 1
         # per-cell escaping luminosity (lumcell, rt:697-708); scaspe stays
         # on device — only the (L,) totals and the (ncell,) per-cell sums
-        # come to host (round-3 copied the full scaspe per iteration)
+        # come to host
         lc_dev, totl_dev, percell_dev = ops.lumcell(scaspe_prev, leaf_dev)
         tot_lumcell = np.asarray(totl_dev, dtype=np.float64)
         if tot_rad_en.sum() <= 0:
@@ -417,9 +415,8 @@ def run_scattering(
                 sid=sel_p,
                 # placeholder only: src_lum_fn overrides every fresh ray's
                 # luminosity from scaspe_prev.  MUST be host numpy — a
-                # device array here meant a per-chunk device slice whose
-                # varying bounds recompiled remotely every launch packet
-                # (3.2 s per assemble, RUNS/r4/measure12.log)
+                # device array here means a per-chunk device slice whose
+                # varying bounds recompile on every launch packet
                 lum=np.zeros((len(sel_p), L)),
                 point=False,
             )
@@ -446,8 +443,8 @@ def run_scattering(
             if symmetrize:
                 from . import symmetry as SYM
 
-                # device-resident symmetrization (round-3 weak #5: the
-                # per-pass numpy round-trip dominated at scale)
+                # device-resident symmetrization (a per-pass numpy round
+                # trip would move the whole field and scaspe)
                 sdev = SYM.dev_ops(sym, perms)
                 u = sdev.fix_u(u, jnp.asarray(u_base, dtype=fdtype))
                 scaspe_new = sdev.fix_scaspe_delta(scaspe_new, scaspe_base)

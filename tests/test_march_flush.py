@@ -1,6 +1,6 @@
 """Two-level march loop (flush_every) equivalence.
 
-The round-5 performance fix moves the u/scaspe scatter-adds out of the
+The two-level variant moves the u/scaspe scatter-adds out of the
 while_loop body: an inner lax.scan of K steps records the (cell, value)
 deposit entries and the outer body flushes them in batched scatter-adds
 (march.flush_every).  Physics is identical — only the summation order of
@@ -8,9 +8,9 @@ the deposits changes — so every field must match the single-level loop to
 float tolerance, and the blocking/status machinery (which never moved)
 must match exactly.
 
-The round-4 pool-kernel miscompile (chained scatters on one array inside
-a loop body silently corrupting state, RUNS/ROUND4_NOTES.md) makes this
-equivalence suite the guard for the chained per-segment flush scatters.
+Chained scatters on one array inside a loop body have been miscompiled
+before, silently corrupting state, so this equivalence suite guards the
+chained per-segment flush scatters.
 """
 import numpy as np
 import pytest

@@ -42,7 +42,6 @@ BB_TABLE = os.path.join(DATA, "TRUSTI_GRIDS", "BB_T10000_L100000.dat")
 
 TAU_Z = 0.1
 LAM = [0.4, 1.0]  # g ~ 0.6 and ~0.45: two distinct HG shapes
-Z_TOP, Z_BOT = trustI.Z1_SLAB, trustI.Z1_SLAB - trustI.LZ_SLAB
 
 
 @pytest.fixture(scope="module")
@@ -96,58 +95,12 @@ def run():
     return grid, dustm, lum[0], scfg, f_jy
 
 
-def _analytic_flux(dustm, lum_l, scfg, j_up: bool, d_cm):
-    """Numerical quadrature of the closed-form first-order integral."""
-    S = trustI.STAR_POS
-    # integration grid over the slab (integrand is smooth: source is 6 pc
-    # above the slab top)
-    nx, nz = 60, 48
-    xs = np.linspace(-5, 5, nx, endpoint=False) + 5.0 / nx
-    zs = np.linspace(Z_BOT, Z_TOP, nz, endpoint=False) + (
-        (Z_TOP - Z_BOT) / nz / 2
-    )
-    X, Y, Z = np.meshgrid(xs, xs, zs, indexing="ij")
-    dV = (10.0 / nx) ** 2 * ((Z_TOP - Z_BOT) / nz)
-    P3 = np.stack([X.ravel(), Y.ravel(), Z.ravel()], axis=-1)  # (N, 3)
-    r = np.linalg.norm(P3 - S, axis=1)
-    s_hat = (P3 - S) / r[:, None]
-    nvec = np.array([0.0, 0.0, 1.0 if j_up else -1.0])
-    cosa = s_hat @ nvec
-
-    k_ref = TAU_Z / trustI.LZ_SLAB  # extinction coeff at lambda_ref [1/pc]
-    out = np.zeros(len(dustm.kext))
-    for il, (kn, alb, g) in enumerate(
-        zip(np.asarray(dustm.kext) / dustm.kext_ref,
-            np.asarray(dustm.albedo), np.asarray(dustm.gsca))
-    ):
-        k = k_ref * kn
-        tau_in = k * r * (Z_TOP - P3[:, 2]) / (S[2] - P3[:, 2])
-        tau_out = k * ((Z_TOP - P3[:, 2]) if j_up else (P3[:, 2] - Z_BOT))
-        # discrete-normalized HG phase factor (calc_ffn_arr convention)
-        b = next(bb for bb in scfg.buckets
-                 if il in set(bb.lam_idx.tolist()))
-        if b.kp >= 0:
-            dirs = b.dirs[: b.npix_hp]  # (P, 3) HEALPix pixel centers
-            wpix = (1 - g**2) * (
-                1 + g**2 - 2 * g * (s_hat @ dirs.T)
-            ) ** -1.5  # (N, P)
-            wobs = (1 - g**2) * (1 + g**2 - 2 * g * cosa) ** -1.5
-            phi = wobs / wpix.sum(axis=1) * b.npix_hp
-        else:
-            phi = np.ones_like(cosa)
-        integ = (
-            k * alb * lum_l[il] * np.exp(-tau_in) / (4 * np.pi * r**2)
-            * phi / (4 * np.pi) * np.exp(-tau_out)
-        )
-        out[il] = integ.sum() * dV
-    return out * 4 * np.pi / (4 * np.pi * d_cm**2) * 1e23
-
-
 @pytest.mark.parametrize("j", [0, 1], ids=["up", "down"])
 def test_single_scattering_matches_analytic(run, j):
     grid, dustm, lum_l, scfg, f_jy = run
-    d_cm = 1e4 * PARSEC * 100
-    expect = _analytic_flux(dustm, lum_l, scfg, j_up=(j == 0), d_cm=d_cm)
+    expect = trustI.single_scattering_flux_jy(
+        dustm.kext / dustm.kext_ref, dustm.albedo, dustm.gsca, lum_l, scfg,
+        TAU_Z, up=(j == 0), dist_pc=1e4)
     ratio = f_jy[j] / expect
     # tolerance: ray/beam + cell discretization (the HG discretization is
     # matched exactly by the discrete normalization above)

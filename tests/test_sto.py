@@ -221,9 +221,10 @@ def test_run_dust_rt_sto_lib_smoke():
 
 
 def test_sto_f32_session_routes_to_f64():
-    """In a float32 session (the TPU bench environment) the stochastic
-    solve must still run in float64 via sto._f64_context and agree with
-    the x64-session result (ADVICE r1: f32 underflows Rd2 moments)."""
+    """In a float32 session (the production default on the GPU) the
+    stochastic solve must still run in float64 via sto._f64_context, on
+    the default device, and agree with the x64-session result (float32
+    underflows the Rd2 moments)."""
     import jax
 
     wl = _wl()
@@ -241,7 +242,7 @@ def test_sto_f32_session_routes_to_f64():
 
 
 def test_capped_grain_escalation_conserves_energy():
-    """T-range expansion cap escalation (VERDICT r2 item 9; cf. the
+    """T-range expansion cap escalation (cf. the
     reference's unconditional expansion loop sed_routines.f90:2389-2400):
     with a deliberately tiny n_range_iter the first solve hits the cap;
     the automatic 4x retry must recover a converged, energy-conserving
